@@ -7,12 +7,13 @@ distance, and the host index build/pack.
 """
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -30,12 +31,12 @@ def main():
     import jax.numpy as jnp
 
     from bench import gen_block, get_mapper, get_packed
-    from genefuserust_tpu.config import Settings
-    from genefuserust_tpu.core.sequence import BASE_CODE_LUT
-    from genefuserust_tpu.ops.edit_distance import edit_distance_batch
-    from genefuserust_tpu.ops.fused import fused_merge_chunked, pass1_rows_packed
-    from genefuserust_tpu.ops.map_read import map_read_pass1
-    from genefuserust_tpu.ops.pack import SEQ4_LUT, pack_q2, pack_seq4, qual_class
+    from genefuserust_jax.config import Settings
+    from genefuserust_jax.core.sequence import BASE_CODE_LUT
+    from genefuserust_jax.ops.edit_distance import edit_distance_batch
+    from genefuserust_jax.ops.fused import fused_merge_chunked, pass1_rows_packed
+    from genefuserust_jax.ops.map_read import map_read_pass1
+    from genefuserust_jax.ops.pack import SEQ4_LUT, pack_q2, pack_seq4, qual_class
 
     dev = jax.devices()[0]
     print(f"device: {dev}")
@@ -131,8 +132,8 @@ def main():
     import random
     import time as _time
 
-    from genefuserust_tpu.core.edit_distance import edit_distance
-    from genefuserust_tpu.parallel.ed_batch import EdBatcher
+    from genefuserust_jax.core.edit_distance import edit_distance
+    from genefuserust_jax.parallel.ed_batch import EdBatcher
 
     rng = random.Random(0)
     bases = "ACGT"

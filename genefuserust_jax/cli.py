@@ -1,0 +1,122 @@
+"""CLI with the reference's exact flag surface.
+
+reference: src/argparse.rs:3-130. `-h` is the HTML report path (as in
+GeneFuse), so argparse's built-in help is disabled; use --help.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .config import Settings
+from .driver import RunConfig, genefuse
+from .utils.compile_cache import enable_compile_cache
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="genefuse-jax",
+        description="JAX gene fusion detection (GeneFuse-compatible)",
+        add_help=False,
+    )
+    p.add_argument("--help", action="help", help="show this help message and exit")
+    p.add_argument("-1", "--read1", required=True, help="read1 file name")
+    p.add_argument("-2", "--read2", default="", help="read2 file name")
+    p.add_argument(
+        "-f", "--fusion", required=True, help="fusion file name, in CSV format"
+    )
+    p.add_argument("-r", "--ref", required=True, help="reference fasta file name")
+    p.add_argument(
+        "-u",
+        "--unique",
+        type=int,
+        default=2,
+        help="least supporting read number required to report a fusion, default 2",
+    )
+    p.add_argument(
+        "-h",
+        "--html",
+        default="genefuse.html",
+        help="file name to store HTML report, default is genefuse.html",
+    )
+    p.add_argument(
+        "-j",
+        "--json",
+        default="genefuse.json",
+        help="file name to store JSON report, default is genefuse.json",
+    )
+    p.add_argument(
+        "-t", "--thread", type=int, default=None,
+        help="worker thread number (maps to the engine's in-flight batch "
+        "bound; unset uses the tuned pipeline depth 6)",
+    )
+    p.add_argument(
+        "-d",
+        "--deletion",
+        type=int,
+        default=50,
+        help="least deletion length of an intra-gene deletion to report, default 50",
+    )
+    p.add_argument(
+        "-D",
+        "--output_deletions",
+        action="store_true",
+        help="enable to output long deletions",
+    )
+    p.add_argument(
+        "-U",
+        "--output_untranslated_fusions",
+        action="store_true",
+        help="enable to output untranslatable fusions",
+    )
+    p.add_argument(
+        "--engine",
+        choices=["device", "host", "sharded-index"],
+        default="device",
+        help="compute engine: batched JAX device pipeline (default), scalar "
+        "host oracle, or the contig-sharded index path for panels whose "
+        "k-mer tables exceed one device's memory (shards over --mesh devices)",
+    )
+    p.add_argument(
+        "--index-cache",
+        default="",
+        help="directory for the on-disk panel index cache (speeds up repeat "
+        "runs; results are identical)",
+    )
+    p.add_argument(
+        "--mesh",
+        default="auto",
+        help="device mesh size for data-parallel scanning: 'auto' (all "
+        "local devices), '1' (single device), or an explicit chip count",
+    )
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    enable_compile_cache()
+    config = RunConfig(
+        r1_file=args.read1,
+        r2_file=args.read2,
+        fusion_file=args.fusion,
+        html=args.html,
+        json=args.json,
+        ref_file=args.ref,
+        thread_num=args.thread,
+        settings=Settings(
+            unique_requirement=args.unique,
+            deletion_threshold=args.deletion,
+            output_deletions=args.output_deletions,
+            output_untranslated=args.output_untranslated_fusions,
+        ),
+        engine=args.engine,
+        index_cache_dir=args.index_cache,
+        mesh=args.mesh,
+    )
+    genefuse(config)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

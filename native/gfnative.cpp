@@ -1,4 +1,4 @@
-// gfnative: native host runtime for the tpu-genefuse engine.
+// gfnative: native host runtime for the genefuserust_jax engine.
 //
 // Covers the host-side hot paths that numpy handles poorly:
 //   - rolling k-mer extraction over panel slices (reference:
@@ -88,8 +88,8 @@ void gf_stable_sort_by_kmer(const uint32_t* kmers, int64_t n,
 // permuted columns directly (no random-gather permute left to the caller).
 //
 // Structure (genome-scale hot path; the reference parallelizes its index
-// build via rayon, src/core/matcher.rs:154-161 — this is the TPU repo's
-// host analog): a parallel stable MSD partition on the high 11 bits
+// build via rayon, src/core/matcher.rs:154-161 — this is its host
+// analog here): a parallel stable MSD partition on the high 11 bits
 // (per-thread block histograms -> bucket-major/thread-minor offsets ->
 // parallel scatter), then per-bucket stable LSD on the low 21 bits, each
 // bucket being cache-resident (~n/2048 records), processed by a thread
@@ -521,7 +521,7 @@ void gf_encode_bases(const uint8_t* bytes, int64_t n, uint8_t* out) {
 // [s1p(w2) | q1p(w4) | s2p(w2) | q2p(w4)] per row, where w2=(L+1)/2 4-bit
 // sequence codes (0..3=ACGT, 4=N, 5..8=acgt, 9=n, 15=other/padding) and
 // w4=(L+3)/4 2-bit quality classes (0 low<=Q15, 1 mid, 2 high>=Q30) —
-// exactly genefuserust_tpu/ops/pack.py. Rows B..outB and columns
+// exactly genefuserust_jax/ops/pack.py. Rows B..outB and columns
 // Lin..L replicate the numpy zero-padding semantics (pad bytes are value
 // 0 -> seq code 15, qual class 0). exotic[r]=1 when any byte within the
 // read span falls outside ACGTNacgtn (host-oracle routing).
@@ -587,7 +587,7 @@ void gf_pack_pe_batch(const uint8_t* b1, const uint8_t* q1,
 
 // Host-side overlap merge + compaction + 2-BIT pack of a paired-end
 // batch. Bit-exact port of the scalar oracle fast_merge
-// (genefuserust_tpu/core/read.py:52-119; reference src/core/read.rs:313-440):
+// (genefuserust_jax/core/read.py:52-119; reference src/core/read.rs:313-440):
 // overlap lengths tried from MIN_OVERLAP(30) upward, accepted iff every
 // mismatch is a low-qual diff (one side >='?' (Q30), other <='0' (Q15))
 // and there are at most 2; in the merged overlap a mismatch takes R1's

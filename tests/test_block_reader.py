@@ -3,12 +3,12 @@ must equal the object scan path."""
 
 import numpy as np
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.scanner import Scanner, HostEngine
-from genefuserust_tpu.io.fastq import FastqReader
-from genefuserust_tpu.io.fastq_block import read_fastq_block, read_pair_block
-from genefuserust_tpu.parallel.engine import TpuEngine
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.scanner import Scanner, HostEngine
+from genefuserust_jax.io.fastq import FastqReader
+from genefuserust_jax.io.fastq_block import read_fastq_block, read_pair_block
+from genefuserust_jax.parallel.engine import DeviceEngine
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_fastq_files,
@@ -21,6 +21,23 @@ def test_block_reader_matches_scalar(refdata):
         scalar = list(FastqReader(str(refdata / name)))
         block = read_fastq_block(str(refdata / name))
         assert len(block) == len(scalar)
+        for i, r in enumerate(scalar):
+            assert block.name(i) == r.name
+            assert block.seq_str(i) == r.seq
+            assert block.qual_str(i) == r.quality
+
+
+def test_block_reader_matches_scalar_seeded(tmp_path):
+    import gzip
+
+    pairs = plant_fusion_pairs(make_panel(seed=4), n_support=3, n_background=40)
+    r1, r2 = write_fastq_files(pairs, str(tmp_path))
+    with open(r1, "rb") as src, gzip.open(r1 + ".gz", "wb") as dst:
+        dst.write(src.read())
+    for path in (r1, r1 + ".gz", r2):
+        scalar = list(FastqReader(path))
+        block = read_fastq_block(path)
+        assert len(block) == len(scalar) == len(pairs)
         for i, r in enumerate(scalar):
             assert block.name(i) == r.name
             assert block.seq_str(i) == r.seq
@@ -67,7 +84,7 @@ def test_block_scan_equals_object_scan(tmp_path):
         l for l in s.splitlines() if not l.startswith('\t"time"')
     )
     m1, j1 = run_obj(HostEngine(), "a.json")
-    m2, j2 = run_block(TpuEngine(Settings(), batch_size=32), "b.json")
+    m2, j2 = run_block(DeviceEngine(Settings(), batch_size=32), "b.json")
     m3, j3 = run_block(HostEngine(), "c.json")
     assert strip(j1) == strip(j2) == strip(j3)
     assert [f.title for f in m1.fusion_results] == [
@@ -76,7 +93,7 @@ def test_block_scan_equals_object_scan(tmp_path):
 
 
 def test_streamed_blocks_equal_whole_file(tmp_path):
-    from genefuserust_tpu.io.fastq_block import (
+    from genefuserust_jax.io.fastq_block import (
         read_pair_block,
         stream_pair_blocks,
     )
@@ -100,10 +117,10 @@ def test_streamed_blocks_equal_whole_file(tmp_path):
     # full streamed scan equals whole-block scan
     _, csv_path = write_panel_files(panel, str(tmp_path))
     sA = Scanner(csv_path, panel.contigs, "", str(tmp_path / "a.json"), Settings(),
-                 engine=TpuEngine(Settings(), batch_size=16), command="s")
+                 engine=DeviceEngine(Settings(), batch_size=16), command="s")
     mA = sA.scan_pair_stream(stream_pair_blocks(r1, r2, chunk_bytes=2048))
     sB = Scanner(csv_path, panel.contigs, "", str(tmp_path / "b.json"), Settings(),
-                 engine=TpuEngine(Settings(), batch_size=64), command="s")
+                 engine=DeviceEngine(Settings(), batch_size=64), command="s")
     mB = sB.scan_pair_block(read_pair_block(r1, r2))
     strip = lambda s: "\n".join(
         l for l in s.splitlines() if not l.startswith('\t"time"')
@@ -117,7 +134,7 @@ def test_coalesce_pair_blocks(tmp_path):
     """coalesce_pair_blocks must re-chunk byte-sized stream blocks into
     exact batch multiples (all but the last), preserve order/content, and
     keep name/read_obj delegation to the source buffers intact."""
-    from genefuserust_tpu.io.fastq_block import (
+    from genefuserust_jax.io.fastq_block import (
         coalesce_pair_blocks,
         coalesce_read_blocks,
         read_pair_block,
@@ -165,12 +182,12 @@ def test_mismatched_widths_and_short_reads(tmp_path):
     """Regression: R1/R2 blocks with different max widths (trimmed mates)
     must scan identically to the host oracle; all-short batches must not
     crash the device kernels."""
-    from genefuserust_tpu.io.fastq_block import read_pair_block
+    from genefuserust_jax.io.fastq_block import read_pair_block
 
     panel = make_panel()
     pairs = plant_fusion_pairs(panel, n_support=5, n_background=20)
     # trim every R2 to 120bp (R1 stays 150) -> different block widths
-    from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
+    from genefuserust_jax.core.read import SequenceRead, SequenceReadPair
 
     trimmed = [
         SequenceReadPair(
@@ -190,7 +207,7 @@ def test_mismatched_widths_and_short_reads(tmp_path):
         return sc.scan_pair_block(read_pair_block(r1, r2)), (tmp_path / name).read_text()
 
     mh, jh = run(HostEngine(), "h.json")
-    mt, jt = run(TpuEngine(Settings(), batch_size=16), "t.json")
+    mt, jt = run(DeviceEngine(Settings(), batch_size=16), "t.json")
     strip = lambda s: "\n".join(
         l for l in s.splitlines() if not l.startswith('\t"time"')
     )
@@ -212,7 +229,7 @@ def test_mismatched_widths_and_short_reads(tmp_path):
     )
     mt2 = Scanner(
         csv_path, panel.contigs, "", "", Settings(),
-        engine=TpuEngine(Settings(), batch_size=8), command="x",
+        engine=DeviceEngine(Settings(), batch_size=8), command="x",
     ).scan_pair_block(read_pair_block(r1s, r2s))
     assert mh2.fusion_results == [] and mt2.fusion_results == []
 
@@ -224,8 +241,8 @@ def test_native_parser_equals_numpy():
     src/core/fastq_reader.rs:19-219 + the LimitedBufReader line cap)."""
     import pytest
 
-    from genefuserust_tpu import native
-    from genefuserust_tpu.io.fastq_block import (
+    from genefuserust_jax import native
+    from genefuserust_jax.io.fastq_block import (
         _parse_fastq_buffer_np,
         parse_fastq_buffer,
     )
@@ -277,7 +294,7 @@ def test_native_parser_equals_numpy():
 def test_strand_line_preserved(tmp_path):
     p = tmp_path / "s.fq"
     p.write_text("@a desc\nACGTACGTACGTACGTACGT\n+a extra text\nIIIIIIIIIIIIIIIIIIII\n")
-    from genefuserust_tpu.io.fastq_block import read_fastq_block
+    from genefuserust_jax.io.fastq_block import read_fastq_block
 
     blk = read_fastq_block(str(p))
     r = blk.read_obj(0)

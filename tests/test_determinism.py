@@ -12,10 +12,10 @@ import re
 import numpy as np
 import pytest
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.scanner import Scanner
-from genefuserust_tpu.parallel.engine import TpuEngine
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.scanner import Scanner
+from genefuserust_jax.parallel.engine import DeviceEngine
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_panel_files,
@@ -37,7 +37,7 @@ def _scan(panel, csv_path, pairs, tmp_path, tag, batch_size, depth=6):
         str(html),
         str(json),
         Settings(),
-        engine=TpuEngine(Settings(), batch_size=batch_size, pipeline_depth=depth),
+        engine=DeviceEngine(Settings(), batch_size=batch_size, pipeline_depth=depth),
         command="determinism-test",
     )
     scanner.scan_pairs(pairs)

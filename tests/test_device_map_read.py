@@ -6,11 +6,11 @@ complements, and a dupe-rich panel (dupe lists + high-level dupes)."""
 import numpy as np
 import pytest
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.indexer import Indexer
-from genefuserust_tpu.core.sequence import encode_bases, reverse_complement
-from genefuserust_tpu.models.fusion import Fusion
-from genefuserust_tpu.ops.hashtable import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.indexer import Indexer
+from genefuserust_jax.core.sequence import encode_bases, reverse_complement
+from genefuserust_jax.models.fusion import Fusion
+from genefuserust_jax.ops.hashtable import (
     EMPTY,
     lookup_np,
     lookup_np_kv,
@@ -18,7 +18,7 @@ from genefuserust_tpu.ops.hashtable import (
     pack_index_kv,
     pack_index_kv16,
 )
-from genefuserust_tpu.utils.synthetic import make_panel, plant_fusion_pairs, write_panel_files
+from genefuserust_jax.utils.synthetic import make_panel, plant_fusion_pairs, write_panel_files
 
 
 def build_indexer(panel, tmp_path, settings=Settings()):
@@ -41,7 +41,7 @@ def batch_of(reads, L):
 
 def run_device(ix, reads, L=None, layout="split"):
     import jax.numpy as jnp
-    from genefuserust_tpu.ops.map_read import map_read_batch
+    from genefuserust_jax.ops.map_read import map_read_batch
 
     L = L or max(16, max(len(r) for r in reads))
     codes, lengths = batch_of(reads, L)
@@ -181,7 +181,7 @@ def test_kv_table_roundtrip(tmp_path):
     # layout-local indices but must agree in count semantics)
     reg = cs >= 0
     assert (ps[reg] == pk[reg]).all()
-    from genefuserust_tpu.ops.hashtable import DUPE
+    from genefuserust_jax.ops.hashtable import DUPE
 
     dup = cs == DUPE
     if dup.any():
@@ -239,7 +239,7 @@ def test_device_matches_oracle_with_dupes(tmp_path):
 def test_device_matches_oracle_tinyref_panel(tmp_path, refdata):
     # real panel CSV against a synthetic chr2 stand-in: gene slices resolve
     # via the chr-fallback path with realistic exon structures
-    from genefuserust_tpu.utils.synthetic import random_seq
+    from genefuserust_jax.utils.synthetic import random_seq
 
     rng = np.random.default_rng(5)
     fusions = Fusion.parse_csv(str(refdata / "fusions.csv"))
@@ -258,6 +258,43 @@ def test_device_matches_oracle_tinyref_panel(tmp_path, refdata):
     jread = contigs["chr2"][20000:20080] + contigs["chr2"][50000:50072]
     reads = [jread, reverse_complement(jread)]
     exp = oracle_segs(ix, reads)
+    assert run_device(ix, reads) == exp
+    assert run_device(ix, reads, layout="kv") == exp
+    assert run_device(ix, reads, layout="kv16") == exp
+
+
+def test_device_matches_oracle_small_panel(tmp_path):
+    # the tinyref-panel case on a seeded CSV: a reversed gene (exons
+    # descending) and a forward gene on one synthetic chr2, each with a
+    # realistic exon structure, and junction reads across them
+    from genefuserust_jax.utils.synthetic import random_seq
+
+    rng = np.random.default_rng(5)
+    contigs = {"chr2": random_seq(rng, 100000)}
+    csv = tmp_path / "fusions.csv"
+    rev_exons = "".join(
+        f"{k + 1},{30000 - 1500 * k},{30000 - 1500 * k + 180}\n" for k in range(18)
+    )
+    fwd_exons = "".join(
+        f"{k + 1},{40500 + 1400 * k},{40500 + 1400 * k + 120}\n" for k in range(20)
+    )
+    csv.write_text(
+        f">REVG,chr2:1000-31000\n{rev_exons}>FWDG,chr2:40000-70000\n{fwd_exons}"
+    )
+    fusions = Fusion.parse_csv(str(csv))
+    assert fusions[0].gene.is_reversed() and not fusions[1].gene.is_reversed()
+    ix = Indexer(contigs, fusions, Settings())
+    ix.make_index()
+    assert ix.fusion_seq[0] != ""
+    s = contigs["chr2"]
+    reads = [
+        s[20000:20080] + s[50000:50072],
+        s[12000:12090] + reverse_complement(s[60000:60070]),
+        s[45000:45150],
+    ]
+    reads += [reverse_complement(r) for r in reads]
+    exp = oracle_segs(ix, reads)
+    assert any(len(e) == 2 for e in exp)
     assert run_device(ix, reads) == exp
     assert run_device(ix, reads, layout="kv") == exp
     assert run_device(ix, reads, layout="kv16") == exp

@@ -23,7 +23,7 @@ jax.config.update("jax_platforms", "cpu")
 
 coord, pid = sys.argv[1], int(sys.argv[2])
 
-from genefuserust_tpu.parallel import distributed
+from genefuserust_jax.parallel import distributed
 
 distributed.init(coordinator_address=coord, num_processes=2, process_id=pid)
 assert jax.process_count() == 2, jax.process_count()

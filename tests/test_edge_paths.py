@@ -5,11 +5,11 @@ import json as jsonlib
 
 import numpy as np
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
-from genefuserust_tpu.core.scanner import Scanner, HostEngine
-from genefuserust_tpu.parallel.engine import TpuEngine
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.read import SequenceRead, SequenceReadPair
+from genefuserust_jax.core.scanner import Scanner, HostEngine
+from genefuserust_jax.parallel.engine import DeviceEngine
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_fastq_files,
@@ -39,7 +39,7 @@ def test_exotic_bytes_route_to_oracle(tmp_path):
         return sc.scan_pairs(pairs), (tmp_path / name).read_text()
 
     mh, jh = run(HostEngine(), "h.json")
-    mt, jt = run(TpuEngine(Settings(), batch_size=16), "t.json")
+    mt, jt = run(DeviceEngine(Settings(), batch_size=16), "t.json")
     strip = lambda s: "\n".join(
         l for l in s.splitlines() if not l.startswith('\t"time"')
     )
@@ -61,7 +61,7 @@ def test_deletion_and_untranslated_gates(tmp_path):
         off = 300 - 150 + 20 + 9 * k
         r1 = fused[off : off + 150]
         r2 = fused[off + 40 : off + 190]
-        from genefuserust_tpu.core.sequence import reverse_complement
+        from genefuserust_jax.core.sequence import reverse_complement
 
         q = "I" * 150
         pairs.append(
@@ -88,7 +88,7 @@ def test_deletion_and_untranslated_gates(tmp_path):
 def test_multi_csv_driver_device_engine(tmp_path, monkeypatch, capsys):
     import sys
 
-    from genefuserust_tpu.driver import RunConfig, genefuse
+    from genefuserust_jax.driver import RunConfig, genefuse
 
     panel = make_panel()
     pairs = plant_fusion_pairs(panel, n_support=6, n_background=10)
@@ -105,7 +105,7 @@ def test_multi_csv_driver_device_engine(tmp_path, monkeypatch, capsys):
         html="",
         json=str(tmp_path / "out.json"),
         ref_file=fa,
-        engine="tpu",
+        engine="device",
     )
     genefuse(cfg)
     j1 = jsonlib.loads((tmp_path / "out_panel.json").read_text())
@@ -121,7 +121,7 @@ def test_multi_csv_driver_device_engine(tmp_path, monkeypatch, capsys):
         html="",
         json=str(tmp_path / "single.json"),
         ref_file=fa,
-        engine="tpu",
+        engine="device",
     )
     genefuse(cfg_single)
     js = jsonlib.loads((tmp_path / "single.json").read_text())

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from genefuserust_tpu.core.edit_distance import edit_distance
-from genefuserust_tpu.ops.edit_distance import (
+from genefuserust_jax.core.edit_distance import edit_distance
+from genefuserust_jax.ops.edit_distance import (
     ED_CODE_LUT,
     edit_distance_batch,
 )

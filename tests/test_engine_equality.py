@@ -1,14 +1,14 @@
-"""The TPU batch engine must produce results identical to the host oracle:
+"""The device batch engine must produce results identical to the host oracle:
 same merges, same matches, same fusions, byte-identical JSON."""
 
 import numpy as np
 import pytest
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
-from genefuserust_tpu.core.scanner import Scanner, HostEngine
-from genefuserust_tpu.parallel.engine import TpuEngine
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.read import SequenceRead, SequenceReadPair
+from genefuserust_jax.core.scanner import Scanner, HostEngine
+from genefuserust_jax.parallel.engine import DeviceEngine
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_panel_files,
@@ -22,9 +22,9 @@ def rand_read(rng, n):
 def test_merge_batch_matches_scalar():
     import jax.numpy as jnp
 
-    from genefuserust_tpu.core.sequence import COMPLEMENT_LUT
-    from genefuserust_tpu.ops.merge import merge_batch
-    from genefuserust_tpu.parallel.engine import _tokenize_bytes, _round_up
+    from genefuserust_jax.core.sequence import COMPLEMENT_LUT
+    from genefuserust_jax.ops.merge import merge_batch
+    from genefuserust_jax.parallel.engine import _tokenize_bytes, _round_up
 
     rng = np.random.default_rng(42)
     pairs = []
@@ -41,7 +41,7 @@ def test_merge_batch_matches_scalar():
             r2span = base[:n2]
         q1 = "".join(chr(int(c)) for c in rng.integers(33, 74, len(r1)))
         q2 = "".join(chr(int(c)) for c in rng.integers(33, 74, len(r2span)))
-        from genefuserust_tpu.core.sequence import reverse_complement
+        from genefuserust_jax.core.sequence import reverse_complement
 
         pairs.append(
             SequenceReadPair(
@@ -115,7 +115,7 @@ def test_full_scan_equality(tmp_path):
         panel.contigs[g1[1]][jp1 - 400 : jp1 + 1]
         + panel.contigs[g2[1]][jp2 : jp2 + 400]
     )
-    from genefuserust_tpu.core.sequence import reverse_complement
+    from genefuserust_jax.core.sequence import reverse_complement
 
     for k in range(4):
         off = 250 + 9 * k
@@ -146,11 +146,11 @@ def test_full_scan_equality(tmp_path):
         )
 
     m_host, json_host = _scan_results(panel, pairs, tmp_path, HostEngine(), "host.json")
-    m_tpu, json_tpu = _scan_results(
-        panel, pairs, tmp_path, TpuEngine(Settings(), batch_size=64), "tpu.json"
+    m_dev, json_dev = _scan_results(
+        panel, pairs, tmp_path, DeviceEngine(Settings(), batch_size=64), "dev.json"
     )
-    assert len(m_host.fusion_results) == len(m_tpu.fusion_results)
-    for a, b in zip(m_host.fusion_results, m_tpu.fusion_results):
+    assert len(m_host.fusion_results) == len(m_dev.fusion_results)
+    for a, b in zip(m_host.fusion_results, m_dev.fusion_results):
         assert a.title == b.title
         assert a.unique == b.unique
         assert [(m.read.name, m.read_break, m.reversed) for m in a.matches] == [
@@ -160,7 +160,7 @@ def test_full_scan_equality(tmp_path):
     strip = lambda s: "\n".join(
         l for l in s.splitlines() if not l.startswith('\t"time"')
     )
-    assert strip(json_host) == strip(json_tpu)
+    assert strip(json_host) == strip(json_dev)
 
 
 def test_single_end_equality(tmp_path):
@@ -184,7 +184,7 @@ def test_single_end_equality(tmp_path):
         return sc.scan_singles(list(reads)), (tmp_path / name).read_text()
 
     mh, jh = run(HostEngine(), "h.json")
-    mt, jt = run(TpuEngine(Settings(), batch_size=32), "t.json")
+    mt, jt = run(DeviceEngine(Settings(), batch_size=32), "t.json")
     strip = lambda s: "\n".join(
         l for l in s.splitlines() if not l.startswith('\t"time"')
     )
@@ -199,14 +199,14 @@ def test_survivor_cap_overflow_equality(tmp_path):
     panel = make_panel()
     pairs = plant_fusion_pairs(panel, n_support=10, n_background=40)
     m_host, json_host = _scan_results(panel, pairs, tmp_path, HostEngine(), "h2.json")
-    eng = TpuEngine(Settings(), batch_size=64)
+    eng = DeviceEngine(Settings(), batch_size=64)
     eng._surv_cap = 2  # well below the planted-support survivor count
-    m_tpu, json_tpu = _scan_results(panel, pairs, tmp_path, eng, "t2.json")
-    assert len(m_host.fusion_results) == len(m_tpu.fusion_results)
+    m_dev, json_dev = _scan_results(panel, pairs, tmp_path, eng, "t2.json")
+    assert len(m_host.fusion_results) == len(m_dev.fusion_results)
     strip = lambda s: "\n".join(
         l for l in s.splitlines() if not l.startswith('\t"time"')
     )
-    assert strip(json_host) == strip(json_tpu)
+    assert strip(json_host) == strip(json_dev)
 
 
 def test_n_bases_equality(tmp_path):
@@ -232,10 +232,10 @@ def test_n_bases_equality(tmp_path):
             )
         )
     m_host, json_host = _scan_results(panel, laced, tmp_path, HostEngine(), "hn.json")
-    m_tpu, json_tpu = _scan_results(
-        panel, laced, tmp_path, TpuEngine(Settings(), batch_size=32), "tn.json"
+    m_dev, json_dev = _scan_results(
+        panel, laced, tmp_path, DeviceEngine(Settings(), batch_size=32), "tn.json"
     )
     strip = lambda s: "\n".join(
         l for l in s.splitlines() if not l.startswith('\t"time"')
     )
-    assert strip(json_host) == strip(json_tpu)
+    assert strip(json_host) == strip(json_dev)

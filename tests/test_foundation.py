@@ -1,20 +1,24 @@
 """Golden tests for the foundation layer, mirroring the reference's unit
 tests (SURVEY §4): reverse_complement, fast_merge, edit_distance, fusion CSV
-pos2str, FASTA/FASTQ parsing."""
+pos2str, FASTA/FASTQ parsing. The `refdata` tests read the reference's own
+test inputs and skip without them; the `_seeded` tests cover the same
+behaviour on files written to tmp_path."""
+
+import gzip
 
 import numpy as np
 import pytest
 
-from genefuserust_tpu.core.sequence import (
+from genefuserust_jax.core.sequence import (
     dis_connected_count,
     encode_bases,
     reverse_complement,
 )
-from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
-from genefuserust_tpu.core.edit_distance import edit_distance
-from genefuserust_tpu.models.fusion import Fusion
-from genefuserust_tpu.io import fasta
-from genefuserust_tpu.io.fastq import FastqReader, FastqReaderPair
+from genefuserust_jax.core.read import SequenceRead, SequenceReadPair
+from genefuserust_jax.core.edit_distance import edit_distance
+from genefuserust_jax.models.fusion import Fusion
+from genefuserust_jax.io import fasta
+from genefuserust_jax.io.fastq import FastqReader, FastqReaderPair
 
 
 def test_reverse_complement():
@@ -117,6 +121,81 @@ def test_fastq_reader(refdata):
     assert plain[0].name.startswith("@NB551106:23:")
     pairs = list(FastqReaderPair(str(refdata / "R1.fq"), str(refdata / "R2.fq")))
     assert len(pairs) == 3
+
+
+def test_fusion_csv_pos2str_seeded(tmp_path):
+    # a forward synthetic panel gene plus a reversed gene (exons listed in
+    # descending order, as for ALK); pos2str = NAME:exon|intron:N|±chr:pos
+    from genefuserust_jax.utils.synthetic import make_panel
+
+    csv = tmp_path / "fusions.csv"
+    csv.write_text(
+        make_panel(seed=5).csv_text
+        + "# comment lines are skipped\n"
+        + ">REV,chr5:20000-30000\n1,29000,29500\n2,26000,26200\n3,21000,21400\n"
+    )
+    by_name = {f.gene.name: f.gene for f in Fusion.parse_csv(str(csv))}
+    assert list(by_name) == ["GENE1", "GENE2", "REV"]
+    fwd, rev = by_name["GENE1"], by_name["REV"]
+    assert (fwd.chr, fwd.start, fwd.end) == ("chr1", 5000, 15000)
+    assert not fwd.is_reversed() and rev.is_reversed()
+    # GENE1 exons: N at [5000 + 1000 (N-1), 5500 + 1000 (N-1)]
+    assert fwd.pos2str(100) == "GENE1:exon:1|+chr1:5100"
+    assert fwd.pos2str(700) == "GENE1:intron:1|+chr1:5700"
+    assert fwd.pos2str(-2200) == "GENE1:exon:3|-chr1:7200"
+    assert fwd.pos2str(9800) == "GENE1:+chr1:14800"  # past the last exon
+    assert rev.pos2str(-9200) == "REV:exon:1|-chr5:29200"
+    assert rev.pos2str(7000) == "REV:intron:1|+chr5:27000"
+    assert rev.pos2str(4000) == "REV:intron:2|+chr5:24000"
+
+
+def test_fasta_reader_seeded(tmp_path):
+    # multi-line, mixed-case records with a header description; names sort
+    rng = np.random.default_rng(3)
+    seqs = {
+        name: "".join(rng.choice(list("ACGTacgtN"), size=n))
+        for name, n in (("contig2", 157), ("contig1", 203))
+    }
+    text = "".join(
+        f">{name} synthetic record\n"
+        + "".join(s[i : i + 60] + "\n" for i in range(0, len(s), 60))
+        for name, s in seqs.items()
+    )
+    (tmp_path / "ref.fa").write_text(text)
+    with gzip.open(tmp_path / "ref.fa.gz", "wt") as f:
+        f.write(text)
+    for name in ("ref.fa", "ref.fa.gz"):
+        for upper in (False, True):
+            contigs = fasta.read_all(str(tmp_path / name), force_upper_case=upper)
+            assert list(contigs) == ["contig1", "contig2"]
+            for c, s in seqs.items():
+                # the description after the first space joins the sequence
+                want = "syntheticrecord" + s
+                assert contigs[c] == (want.upper() if upper else want)
+
+
+def test_fastq_reader_seeded(tmp_path):
+    from genefuserust_jax.utils.synthetic import (
+        make_panel,
+        plant_fusion_pairs,
+        write_fastq_files,
+    )
+
+    pairs = plant_fusion_pairs(make_panel(seed=9), n_support=2, n_background=5)
+    r1, r2 = write_fastq_files(pairs, str(tmp_path))
+    with open(r1, "rb") as src, gzip.open(r1 + ".gz", "wb") as dst:
+        dst.write(src.read())
+    plain = list(FastqReader(r1))
+    gz = list(FastqReader(r1 + ".gz"))
+    assert len(plain) == len(gz) == len(pairs)
+    for a, b, want in zip(plain, gz, pairs):
+        assert (a.name, a.seq, a.quality) == (b.name, b.seq, b.quality)
+        assert (a.name, a.seq, a.quality) == (
+            want.left.name, want.left.seq, want.left.quality
+        )
+    got = list(FastqReaderPair(r1, r2))
+    assert len(got) == len(pairs)
+    assert [p.right.seq for p in got] == [p.right.seq for p in pairs]
 
 
 def test_read_reverse_complement():

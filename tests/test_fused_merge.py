@@ -4,22 +4,22 @@ merged flag, diff, length, and the merged sequence's 2-bit mapping codes
 
 import numpy as np
 
-from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
-from genefuserust_tpu.core.sequence import reverse_complement
+from genefuserust_jax.core.read import SequenceRead, SequenceReadPair
+from genefuserust_jax.core.sequence import reverse_complement
 
 
 def test_fused_merge_matches_scalar():
     import jax.numpy as jnp
 
-    from genefuserust_tpu.ops.fused import fused_pass1_chunked
-    from genefuserust_tpu.ops.pack import (
+    from genefuserust_jax.ops.fused import fused_pass1_chunked
+    from genefuserust_jax.ops.pack import (
         MAP_FROM_SEQ4,
         SEQ4_LUT,
         pack_q2,
         pack_seq4,
         qual_class,
     )
-    from genefuserust_tpu.ops.hashtable import EMPTY
+    from genefuserust_jax.ops.hashtable import EMPTY
 
     rng = np.random.default_rng(7)
     bases = "ACGTN"
@@ -100,7 +100,7 @@ def test_fused_merge_matches_scalar():
         assert f"merged_diff_{S[i, 1]}" in f"merged_diff_{S[i, 1]}"
         assert ref.name.endswith(f"merged_diff_{int(S[i, 1])}")
         # merged mapping codes equal the scalar merged read's codes
-        from genefuserust_tpu.core.sequence import encode_bases
+        from genefuserust_jax.core.sequence import encode_bases
 
         exp_codes = encode_bases(ref.seq)
         got = map4[mc[i, : len(ref.seq)]]

@@ -1,11 +1,11 @@
 """Direct unit pins for FusionResult semantics (otherwise only covered
 through e2e scans)."""
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.fusion_result import FusionResult, get_ref_seq, _trunc_div
-from genefuserust_tpu.core.indexer import GenePos
-from genefuserust_tpu.core.mapper import ReadMatch
-from genefuserust_tpu.core.read import SequenceRead
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.fusion_result import FusionResult, get_ref_seq, _trunc_div
+from genefuserust_jax.core.indexer import GenePos
+from genefuserust_jax.core.mapper import ReadMatch
+from genefuserust_jax.core.read import SequenceRead
 
 
 def mk(read_break, lp, rp, gap=1, seq="ACGT" * 40):
@@ -66,7 +66,7 @@ def test_get_ref_seq_negative_strand():
     assert get_ref_seq(ref, 1, 4) == "CGTT"
     # negative coords -> reverse complement of [|end|, len)
     assert get_ref_seq(ref, -4, -1) == get_ref_seq(ref, 1, 4) and False or True
-    from genefuserust_tpu.core.sequence import reverse_complement
+    from genefuserust_jax.core.sequence import reverse_complement
 
     assert get_ref_seq(ref, -4, -1) == reverse_complement(ref[1:5])
     # mixed strand / overflow -> empty

@@ -13,10 +13,10 @@ Timestamps are normalized; everything else must match byte-for-byte.
 import os
 import re
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.scanner import Scanner
-from genefuserust_tpu.parallel.engine import TpuEngine
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.scanner import Scanner
+from genefuserust_jax.parallel.engine import DeviceEngine
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_panel_files,
@@ -44,7 +44,7 @@ def _produce(tmp_dir: str):
         html,
         json,
         Settings(),
-        engine=TpuEngine(Settings(), batch_size=64),
+        engine=DeviceEngine(Settings(), batch_size=64),
         command="golden-run",
     )
     scanner.scan_pairs(pairs)

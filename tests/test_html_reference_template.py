@@ -20,9 +20,9 @@ import pytest
 from ref_template_util import fn_body as _fn_body
 from ref_template_util import write_literals as _write_literals
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.scanner import Scanner
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.scanner import Scanner
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_panel_files,

@@ -26,9 +26,9 @@ from ref_template_util import (
     split_placeholders,
 )
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.scanner import Scanner
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.scanner import Scanner
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_panel_files,

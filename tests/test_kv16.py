@@ -1,6 +1,6 @@
 """PackedIndexKV16 (single-gather table): pack + lookup correctness.
 
-The layout's exactness argument (genefuserust_tpu/ops/hashtable.py
+The layout's exactness argument (genefuserust_jax/ops/hashtable.py
 PackedIndexKV16 docstring) has two load-bearing pieces this file pins:
 
   1. every key — including keys spilled out of an overflowed h1 bucket —
@@ -17,10 +17,10 @@ flag + spill machinery.
 import numpy as np
 from types import SimpleNamespace
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.models.fusion import Fusion
-from genefuserust_tpu.core.indexer import Indexer
-from genefuserust_tpu.ops.hashtable import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.models.fusion import Fusion
+from genefuserust_jax.core.indexer import Indexer
+from genefuserust_jax.ops.hashtable import (
     DUPE,
     EMPTY,
     KV16_SLOTS,
@@ -32,7 +32,7 @@ from genefuserust_tpu.ops.hashtable import (
     pack_index,
     pack_index_kv16,
 )
-from genefuserust_tpu.utils.synthetic import make_panel, write_panel_files
+from genefuserust_jax.utils.synthetic import make_panel, write_panel_files
 
 
 def _fake_indexer(keys, contigs, poss, dup_threshold=5):
@@ -147,7 +147,7 @@ def test_kv16_pack_deterministic(tmp_path):
 def test_kv16_device_kernel_matches_oracle(tmp_path):
     import jax.numpy as jnp
 
-    from genefuserust_tpu.ops.map_read import kv16_lookup
+    from genefuserust_jax.ops.map_read import kv16_lookup
 
     ix = _build_panel_indexer(tmp_path)
     p16 = pack_index_kv16(ix)

@@ -2,7 +2,7 @@
 equality.
 
 Same exactness argument as the kv16 layout (tests/test_kv16.py) at the
-measured-cheap 32B row width: one random gather per query, an overflow
+32B row width: one random gather per query, an overflow
 marker in payload slot 3, spilled keys found via a clamped second probe.
 Adds coverage for the eviction rescue in _place_single_hash (a spill whose
 h2 bucket is full displaces an inline key of its flagged h1 bucket) via a
@@ -13,11 +13,11 @@ GENEFUSE_TABLE_LAYOUT=kvs.
 import numpy as np
 from types import SimpleNamespace
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.indexer import Indexer
-from genefuserust_tpu.core.scanner import HostEngine
-from genefuserust_tpu.models.fusion import Fusion
-from genefuserust_tpu.ops.hashtable import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.indexer import Indexer
+from genefuserust_jax.core.scanner import HostEngine
+from genefuserust_jax.models.fusion import Fusion
+from genefuserust_jax.ops.hashtable import (
     DUPE,
     EMPTY,
     KV_SLOTS,
@@ -29,7 +29,7 @@ from genefuserust_tpu.ops.hashtable import (
     pack_index,
     pack_index_kvs,
 )
-from genefuserust_tpu.utils.synthetic import make_panel, write_panel_files
+from genefuserust_jax.utils.synthetic import make_panel, write_panel_files
 
 
 def _fake_indexer(keys, contigs, poss, dup_threshold=5):
@@ -153,7 +153,7 @@ def test_kvs_pack_deterministic(tmp_path):
 def test_kvs_device_kernel_matches_oracle(tmp_path):
     import jax.numpy as jnp
 
-    from genefuserust_tpu.ops.map_read import kvs_lookup
+    from genefuserust_jax.ops.map_read import kvs_lookup
 
     ix = _build_panel_indexer(tmp_path)
     pkvs = pack_index_kvs(ix)
@@ -182,8 +182,8 @@ def test_kv4_narrow_rows_roundtrip_and_device(tmp_path):
     # kernel (kv_lookup derives the slot count from the table shape)
     import jax.numpy as jnp
 
-    from genefuserust_tpu.ops.hashtable import lookup_np_kv, pack_index_kv
-    from genefuserust_tpu.ops.map_read import kv_lookup
+    from genefuserust_jax.ops.hashtable import lookup_np_kv, pack_index_kv
+    from genefuserust_jax.ops.map_read import kv_lookup
 
     ix = _build_panel_indexer(tmp_path)
     split = pack_index(ix)
@@ -216,8 +216,8 @@ def test_kv2_single_slot_roundtrip_and_device(tmp_path):
     # 2xint32 rows, same shape-generic 2-gather kernel
     import jax.numpy as jnp
 
-    from genefuserust_tpu.ops.hashtable import lookup_np_kv, pack_index_kv
-    from genefuserust_tpu.ops.map_read import kv_lookup
+    from genefuserust_jax.ops.hashtable import lookup_np_kv, pack_index_kv
+    from genefuserust_jax.ops.map_read import kv_lookup
 
     ix = _build_panel_indexer(tmp_path)
     split = pack_index(ix)
@@ -274,9 +274,9 @@ def test_engine_full_scan_equality_alt_layouts(tmp_path, monkeypatch, layout):
     # alternate table layout must match the host oracle (results + JSON)
     # on a planted-fusion panel (kv4, the default, is covered by the main
     # engine equality suite)
-    from genefuserust_tpu.core.scanner import Scanner
-    from genefuserust_tpu.parallel.engine import TpuEngine
-    from genefuserust_tpu.utils.synthetic import plant_fusion_pairs
+    from genefuserust_jax.core.scanner import Scanner
+    from genefuserust_jax.parallel.engine import DeviceEngine
+    from genefuserust_jax.utils.synthetic import plant_fusion_pairs
 
     panel = make_panel()
     pairs = plant_fusion_pairs(panel, n_support=8, n_background=100)
@@ -292,7 +292,7 @@ def test_engine_full_scan_equality_alt_layouts(tmp_path, monkeypatch, layout):
 
     m_host, json_host = scan(HostEngine(), "host.json")
     monkeypatch.setenv("GENEFUSE_TABLE_LAYOUT", layout)
-    m_alt, json_alt = scan(TpuEngine(Settings(), batch_size=64), "alt.json")
+    m_alt, json_alt = scan(DeviceEngine(Settings(), batch_size=64), "alt.json")
     assert len(m_host.fusion_results) == len(m_alt.fusion_results)
     for a, b in zip(m_host.fusion_results, m_alt.fusion_results):
         assert a.title == b.title

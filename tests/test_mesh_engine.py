@@ -1,6 +1,6 @@
-"""Production multi-chip path: the SAME TpuEngine, sharded over a mesh.
+"""Production multi-chip path: the SAME DeviceEngine, sharded over a mesh.
 
-Runs the full product scan (Scanner -> TpuEngine -> reports) on the
+Runs the full product scan (Scanner -> DeviceEngine -> reports) on the
 8-device virtual CPU mesh and asserts byte-identical JSON/HTML against the
 single-device engine and the host-oracle engine. This is the equality the
 dryrun checks at the driver level (__graft_entry__.dryrun_multichip)."""
@@ -10,10 +10,10 @@ import re
 import jax
 import pytest
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.scanner import HostEngine, Scanner
-from genefuserust_tpu.parallel.engine import TpuEngine
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.scanner import HostEngine, Scanner
+from genefuserust_jax.parallel.engine import DeviceEngine
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_panel_files,
@@ -44,7 +44,7 @@ def _scan(panel, csv_path, pairs, tmp_path, tag, engine):
 def test_mesh_engine_equals_single_and_oracle(tmp_path):
     devices = jax.devices()
     assert len(devices) >= 8, "conftest must provide the 8-device CPU mesh"
-    from genefuserust_tpu.parallel.mesh import make_mesh
+    from genefuserust_jax.parallel.mesh import make_mesh
 
     mesh = make_mesh(devices[:8])
 
@@ -54,11 +54,11 @@ def test_mesh_engine_equals_single_and_oracle(tmp_path):
 
     h_mesh, j_mesh = _scan(
         panel, csv_path, pairs, tmp_path, "mesh",
-        TpuEngine(Settings(), batch_size=64, mesh=mesh),
+        DeviceEngine(Settings(), batch_size=64, mesh=mesh),
     )
     h_one, j_one = _scan(
         panel, csv_path, pairs, tmp_path, "one",
-        TpuEngine(Settings(), batch_size=64),
+        DeviceEngine(Settings(), batch_size=64),
     )
     h_host, j_host = _scan(
         panel, csv_path, pairs, tmp_path, "host", HostEngine()

@@ -8,8 +8,8 @@ the reference's semantics).
 import numpy as np
 import pytest
 
-from genefuserust_tpu import native
-from genefuserust_tpu.core.matcher import Matcher
+from genefuserust_jax import native
+from genefuserust_jax.core.matcher import Matcher
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable"

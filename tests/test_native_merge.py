@@ -5,9 +5,9 @@ read.rs:313-440), including 2-bit packing and non-ACGT exception capture."""
 import numpy as np
 import pytest
 
-from genefuserust_tpu import native
-from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
-from genefuserust_tpu.core.sequence import BASE_CODE_LUT
+from genefuserust_jax import native
+from genefuserust_jax.core.read import SequenceRead, SequenceReadPair
+from genefuserust_jax.core.sequence import BASE_CODE_LUT
 
 RC = {65: 84, 84: 65, 67: 71, 71: 67}
 

@@ -3,13 +3,14 @@ testdata must produce a clean zero-fusion report; JSON layout sanity."""
 
 import json as jsonlib
 
+import numpy as np
 import pytest
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.scanner import Scanner
-from genefuserust_tpu.io import fasta
-from genefuserust_tpu.io.fastq import FastqReaderPair
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.scanner import Scanner
+from genefuserust_jax.io import fasta
+from genefuserust_jax.io.fastq import FastqReaderPair
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_panel_files,
@@ -81,6 +82,34 @@ def test_tinyref_zero_fusions(refdata, tmp_path):
     )
     pairs = FastqReaderPair(str(refdata / "R1.fq"), str(refdata / "R2.fq"))
     mapper = scanner.scan_pairs(pairs)
+    assert mapper.fusion_results == []
+    assert "Found 0 fusion" in (tmp_path / "g.html").read_text()
+    parsed = jsonlib.loads((tmp_path / "g.json").read_text())
+    assert parsed["fusions"] == {}
+
+
+def test_zero_fusions_seeded(panel, tmp_path):
+    # as with tinyref: the panel's chromosomes are absent from the FASTA,
+    # so the index is empty and no fusion is found, but the whole pipeline
+    # (FASTQ pair reader, reports) must run cleanly
+    from genefuserust_jax.utils.synthetic import random_seq, write_fastq_files
+
+    rng = np.random.default_rng(8)
+    fa = tmp_path / "other.fa"
+    fa.write_text("".join(f">contig{i}\n{random_seq(rng, 500)}\n" for i in (1, 2)))
+    _, csv_path = write_panel_files(panel, str(tmp_path))
+    r1, r2 = write_fastq_files(
+        plant_fusion_pairs(panel, n_support=3, n_background=10), str(tmp_path)
+    )
+    scanner = Scanner(
+        csv_path,
+        fasta.read_all(str(fa)),
+        str(tmp_path / "g.html"),
+        str(tmp_path / "g.json"),
+        Settings(),
+        command="tiny",
+    )
+    mapper = scanner.scan_pairs(FastqReaderPair(r1, r2))
     assert mapper.fusion_results == []
     assert "Found 0 fusion" in (tmp_path / "g.html").read_text()
     parsed = jsonlib.loads((tmp_path / "g.json").read_text())

@@ -7,9 +7,9 @@ import json as jsonlib
 
 import pytest
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.scanner import Scanner
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.scanner import Scanner
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_panel_files,

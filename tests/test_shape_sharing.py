@@ -2,21 +2,20 @@
 with IDENTICAL static jit signatures (shapes + static scalars), so the
 per-panel scan variants compile once and are reused by every CSV.
 
-Round-4 measurement that motivates this: `bench.py --multi-csv 16` spent
-1564 s in warmup because the 16 per-CSV tables drifted in pos_bias /
-cbits / dupe-table shape (all static under jit: ops/fused.py
-static_argnames), recompiling every variant per panel (PERF.md round 4).
+What motivates this: under `bench.py --multi-csv 16` the 16 per-CSV
+tables drifted in pos_bias / cbits / dupe-table shape (all static under
+jit: ops/fused.py static_argnames), recompiling every variant per panel.
 The normalization lives in ops/hashtable.py (`_kv_budget` bucketing,
 `_entries_from_indexer` pow2 dupe dims); this test pins it.
 """
 
 import numpy as np
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.models.fusion import Fusion
-from genefuserust_tpu.core.indexer import Indexer
-from genefuserust_tpu.ops import hashtable
-from genefuserust_tpu.utils.synthetic import make_panel
+from genefuserust_jax.config import Settings
+from genefuserust_jax.models.fusion import Fusion
+from genefuserust_jax.core.indexer import Indexer
+from genefuserust_jax.ops import hashtable
+from genefuserust_jax.utils.synthetic import make_panel
 
 
 def _split_csv(csv_text: str, n: int):
@@ -71,10 +70,10 @@ def test_multi_panel_scan_compiles_once(tmp_path):
     single-lane retry program) — i.e. the per-panel dispatches actually
     reuse one compiled scan, rather than merely packing equal-shaped
     tables."""
-    from genefuserust_tpu.core.mapper import FusionMapper
-    from genefuserust_tpu.ops.fused import fused_scan_lanes
-    from genefuserust_tpu.parallel.engine import TpuEngine
-    from genefuserust_tpu.utils.synthetic import make_panel, plant_fusion_pairs
+    from genefuserust_jax.core.mapper import FusionMapper
+    from genefuserust_jax.ops.fused import fused_scan_lanes
+    from genefuserust_jax.parallel.engine import DeviceEngine
+    from genefuserust_jax.utils.synthetic import make_panel, plant_fusion_pairs
 
     panel = make_panel(seed=11, chrom_len=30000, n_genes=8, gene_len=10000)
     parts = _split_csv(panel.csv_text, 4)
@@ -86,14 +85,14 @@ def test_multi_panel_scan_compiles_once(tmp_path):
     pairs = plant_fusion_pairs(panel, n_support=5, n_background=120, seed=7)
     import numpy as np_  # tokenize via the engine's own helper
 
-    from genefuserust_tpu.parallel.engine import _tokenize_bytes
+    from genefuserust_jax.parallel.engine import _tokenize_bytes
 
     L = 192
     b1, l1 = _tokenize_bytes([p.left.seq.encode() for p in pairs], L)
     q1, _ = _tokenize_bytes([p.left.quality.encode() for p in pairs], L)
     b2, l2 = _tokenize_bytes([p.right.seq.encode() for p in pairs], L)
     q2, _ = _tokenize_bytes([p.right.quality.encode() for p in pairs], L)
-    engine = TpuEngine(Settings(), batch_size=64)
+    engine = DeviceEngine(Settings(), batch_size=64)
     before = fused_scan_lanes._cache_size()
     for s in range(0, len(pairs), 64):
         sl = slice(s, min(len(pairs), s + 64))
@@ -114,7 +113,7 @@ def test_dupe_table_dims_are_pow2_bucketed(tmp_path):
     # a duplicated motif forces real dupe entries; dims must still land on
     # the pow2 buckets (rows >= 16, max_dupe pow2) with lookups intact
     rng = np.random.default_rng(3)
-    from genefuserust_tpu.utils.synthetic import random_seq
+    from genefuserust_jax.utils.synthetic import random_seq
 
     motif = random_seq(rng, 60)
     seq = random_seq(rng, 6000) + motif + random_seq(rng, 500) + motif
@@ -147,9 +146,9 @@ def test_pad_reuse_window_is_one_quarter_step():
     in the memo (the merged lane), a ~30k-row lane must get its own 32768
     pad, not adopt the 2x-too-big 65536 (which doubled that lane's gather
     volume); adjacent quarter-step reuse (49152 -> 65536) stays allowed."""
-    from genefuserust_tpu.parallel.engine import TpuEngine
+    from genefuserust_jax.parallel.engine import DeviceEngine
 
-    e = TpuEngine(Settings(), batch_size=65536)
+    e = DeviceEngine(Settings(), batch_size=65536)
     assert e._pad_rows(50452) == 65536  # merged lane seeds the memo
     assert e._pad_rows(30168) == 32768  # unmerged lane: NOT 65536
     assert e._pad_rows(49152) == 65536  # adjacent quarter-step reuse ok

@@ -5,11 +5,11 @@ import re
 import jax
 import pytest
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.scanner import HostEngine, Scanner
-from genefuserust_tpu.parallel.mesh import make_mesh
-from genefuserust_tpu.parallel.sharded_engine import ShardedIndexEngine
-from genefuserust_tpu.utils.synthetic import (
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.scanner import HostEngine, Scanner
+from genefuserust_jax.parallel.mesh import make_mesh
+from genefuserust_jax.parallel.sharded_engine import ShardedIndexEngine
+from genefuserust_jax.utils.synthetic import (
     make_panel,
     plant_fusion_pairs,
     write_panel_files,

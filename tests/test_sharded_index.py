@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.core.indexer import Indexer
-from genefuserust_tpu.core.sequence import encode_bases, reverse_complement
-from genefuserust_tpu.models.fusion import Fusion
-from genefuserust_tpu.utils.synthetic import make_panel, write_panel_files
+from genefuserust_jax.config import Settings
+from genefuserust_jax.core.indexer import Indexer
+from genefuserust_jax.core.sequence import encode_bases, reverse_complement
+from genefuserust_jax.models.fusion import Fusion
+from genefuserust_jax.utils.synthetic import make_panel, write_panel_files
 
 
 def test_sharded_matches_oracle(tmp_path):
@@ -15,7 +15,7 @@ def test_sharded_matches_oracle(tmp_path):
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from genefuserust_tpu.parallel.sharded_index import (
+    from genefuserust_jax.parallel.sharded_index import (
         build_sharded_map_read,
         pack_index_sharded,
         stack_packs,

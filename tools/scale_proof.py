@@ -6,14 +6,14 @@ timings to SCALE.md:
   (a) the whole-genome Matcher build (core/matcher.py, reference
       matcher.rs:120-169) over a synthetic 1 Gbp genome — the memory-heavy
       structure behind remove_alignables on hg19/hg38;
-  (b) a panel too big for one chip's HBM (default 512 Mbp -> ~17 GB of
-      split-layout tables vs 16 GB v5e HBM) built, contig-sharded over an
+  (b) a large panel (default 512 Mbp -> ~17 GB of split-layout tables)
+      built, contig-sharded over an
       8-way mesh (parallel/sharded_index.py), and scanned end-to-end
       through the PRODUCT ShardedIndexEngine with a planted fusion that
       must be detected.
 
-Run on the forced-CPU 8-device mesh (no TPU needed; the sharding logic is
-device-agnostic):
+Run on the forced-CPU 8-device mesh (no accelerator needed; the sharding
+logic is device-agnostic):
 
     JAX_PLATFORM_NAME=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python tools/scale_proof.py [--genome-mbp 1000] [--panel-mbp 512]
@@ -42,7 +42,7 @@ def gen_genome(mbp: float, n_contigs: int = 8, seed: int = 7):
     """Synthetic genome as in-memory contigs; includes a poly-A decoy
     region (random test genomes otherwise hit the reference Matcher's
     would-panic path — see utils/synthetic.py)."""
-    from genefuserust_tpu.utils.synthetic import random_seq
+    from genefuserust_jax.utils.synthetic import random_seq
 
     rng = np.random.default_rng(seed)
     per = int(mbp * 1e6 / n_contigs)
@@ -94,7 +94,7 @@ def main():
             "",
         ]
     else:
-        from genefuserust_tpu.core.matcher import Matcher
+        from genefuserust_jax.core.matcher import Matcher
 
         rng = np.random.default_rng(1)
         cands = []
@@ -130,13 +130,13 @@ def main():
     # ---------- (b) sharded whole-genome panel ----------
     import jax
 
-    from genefuserust_tpu.config import Settings
-    from genefuserust_tpu.core.mapper import FusionMapper
-    from genefuserust_tpu.core.scanner import HostEngine, Scanner
-    from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
-    from genefuserust_tpu.core.sequence import reverse_complement
-    from genefuserust_tpu.parallel.mesh import make_mesh
-    from genefuserust_tpu.parallel.sharded_engine import ShardedIndexEngine
+    from genefuserust_jax.config import Settings
+    from genefuserust_jax.core.mapper import FusionMapper
+    from genefuserust_jax.core.scanner import HostEngine, Scanner
+    from genefuserust_jax.core.read import SequenceRead, SequenceReadPair
+    from genefuserust_jax.core.sequence import reverse_complement
+    from genefuserust_jax.parallel.mesh import make_mesh
+    from genefuserust_jax.parallel.sharded_engine import ShardedIndexEngine
 
     # panel CSV: tile genes over the first panel-mbp of the genome
     n_keep = int(args.panel_mbp * 1e6)
@@ -228,10 +228,10 @@ def main():
         f"{n_entries / 1e6:.0f}M unique k-mers, peak RSS {rss_gb():.1f} GB",
         f"- contig-sharded pack + upload ({args.shards} shards): "
         f"**{t_pack:.0f}s**, {tbl_gb:.1f} GB of tables "
-        f"({tbl_gb / args.shards:.1f} GB/shard; one v5e chip holds 16 GB "
-        "total, so the unsharded table cannot fit alongside batch "
-        "buffers — and an hg38-scale whole-genome panel (3.2 Gbp, ~6.4G "
-        "entries, ~77 GB of tables) strictly requires this sharding)",
+        f"({tbl_gb / args.shards:.1f} GB/shard; one 80 GB H100 holds "
+        "this panel unsharded, but an hg38-scale whole-genome panel "
+        "(3.2 Gbp, ~6.4G entries, ~77 GB of tables) leaves no room for "
+        "batch buffers on one card and needs this sharding)",
         f"- planted-fusion scan through `--engine sharded-index`: "
         f"{t_scan:.1f}s, fusions detected: {n_fusions} (>=1 required)",
         "",
